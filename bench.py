@@ -1,12 +1,15 @@
-"""Benchmark: batched CSTR NMPC solves/s on one chip.
+"""Benchmark: batched CSTR NMPC solves/s on one GPU.
 
-Metric matches BASELINE.json: "NMPC solves/s/chip (CSTR, N=20 horizon)". The north-star
-target is >=10,000 batched solves/s on v5e-8, i.e. 1,250 solves/s/chip — `vs_baseline`
-is reported against that per-chip share.
+Metric matches BASELINE.json: "NMPC solves/s/chip (CSTR, N=20 horizon)". The
+run fails when JAX finds no GPU, and fails rather than retrying at a smaller
+batch when the solve does.
 
-Prints ONE JSON line: {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}.
+Usage: python bench.py [B] [reps]
+Prints the card's name and power limit, then ONE JSON line:
+{"metric": ..., "value": N, "unit": ..., "device": ...}.
 """
 import json
+import subprocess
 import sys
 import time
 
@@ -14,25 +17,26 @@ import numpy as np
 
 
 def main():
-    import jax
+    from hilo_mpc_tpu.utils.compile_cache import use_compile_cache
 
-    # persistent compile cache: repeated bench runs (and the driver's per-round
-    # invocation) skip the multi-minute XLA compile of the unrolled solver
-    jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    use_compile_cache()
+    import jax
 
     import __graft_entry__ as ge
 
     dev = jax.devices()[0]
-    # measured on v5e (fused Pallas Riccati sweeps, pure Newton config):
-    # B=131072 -> 1.758M, 262144 -> 1.829M, 524288 -> 1.865M,
-    # 1048576 -> 1.877M solves/s; default to the best measured point
-    B = int(sys.argv[1]) if len(sys.argv) > 1 else 1048576
+    if dev.platform != "gpu":
+        raise SystemExit(f"no GPU: JAX found platform {dev.platform!r}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"# card: {card}", file=sys.stderr)
+    B = int(sys.argv[1]) if len(sys.argv) > 1 else 262144
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 3
-    _run(ge, jax, dev, B, reps)
+    _run(ge, jax, dev, card, B, reps)
 
 
-def _run(ge, jax, dev, B, reps):
+def _run(ge, jax, dev, card, B, reps):
     import jax.numpy as jnp
 
     nmpc = ge._build_nmpc(N=20, tol=1e-4, max_iter=25)
@@ -58,8 +62,6 @@ def _run(ge, jax, dev, B, reps):
 
     # warm-start measurement: re-solve from the previous solution shifted by one
     # stage (the real closed-loop MPC regime)
-    import jax.numpy as jnp
-
     theta_B, xs0_B, _, _ = args
     X_warm = jnp.concatenate([sol.X[:, 1:], sol.X[:, -1:]], axis=1)
     X_warm = X_warm.at[:, 0, :].set(xs0_B)
@@ -73,28 +75,19 @@ def _run(ge, jax, dev, B, reps):
     t_warm = time.perf_counter() - t0
     warm_iters = float(np.median(np.asarray(sol_w.iterations)))
 
-    target_per_chip = 10000.0 / 8.0
     result = {
         "metric": "NMPC solves/s/chip (CSTR, N=20, multiple shooting)",
         "value": round(solves_per_s, 1),
         "unit": "solves/s",
-        "vs_baseline": round(solves_per_s / target_per_chip, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "card": card},
     }
     print(json.dumps(result))
     print(f"# device={dev.platform} B={B} t_best={t_best*1e3:.1f}ms "
           f"compile={compile_s:.1f}s converged={conv:.3f} iters_p50={iters} "
-          f"per-solve={t_best/B*1e6:.1f}us | warm-start: {B/t_warm:.0f} solves/s "
-          f"({t_warm/B*1e6:.1f}us, iters_p50={warm_iters})", file=sys.stderr)
+          f"per-solve={t_best/B*1e6:.3f}us | warm-start: {B/t_warm:.0f} solves/s "
+          f"({t_warm/B*1e6:.3f}us, iters_p50={warm_iters})", file=sys.stderr)
 
 
 if __name__ == "__main__":
-    try:
-        main()
-    except Exception as e:  # degraded compile helper / OOM: retry smaller
-        print(f"# bench failed at default batch ({type(e).__name__}: {e}); "
-              f"retrying B=512", file=sys.stderr)
-        import jax
-
-        import __graft_entry__ as ge
-
-        _run(ge, jax, jax.devices()[0], 512, 2)
+    main()

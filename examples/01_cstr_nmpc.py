@@ -1,7 +1,7 @@
 """Reference-tracking NMPC on the Schaffner-Zeitz CSTR (BASELINE configs[0];
 reference example: docs/docsource/examples CSTR).
 
-Also demonstrates the TPU headline path: the same controller solving thousands of
+Also demonstrates the fleet path: the same controller solving thousands of
 perturbed scenarios in one batched call.
 """
 import os as _os

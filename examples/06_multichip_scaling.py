@@ -67,9 +67,9 @@ def main():
         if jax.default_backend() == "cpu":
             print("NOTE: virtual CPU devices share the same physical cores (XLA "
                   "already multithreads the 1-device case), so efficiency here "
-                  "only validates the sharding mechanics — per-chip scaling on "
-                  "real TPU hardware is near-linear for this embarrassingly "
-                  "parallel batch axis.")
+                  "only validates the sharding mechanics — real devices each "
+                  "run their own shard of this embarrassingly parallel batch "
+                  "axis.")
 
     if os.environ.get("HILO_EXAMPLES_OUT"):     # gallery figure
         import _gallery as _g
@@ -87,7 +87,7 @@ def main():
         ax.set_xticklabels([f"{nd} device{'s' if nd > 1 else ''}"
                             for nd in nds], color=_g.MUTED, fontsize=8)
         backend = "virtual CPU mesh" if jax.default_backend() == "cpu" \
-            else "TPU mesh"
+            else f"{jax.default_backend().upper()} mesh"
         _g.style(ax, title=f"Scenario-sharded NMPC throughput ({backend}, "
                            f"B={128 * n_dev})",
                  ylabel="solves/s")

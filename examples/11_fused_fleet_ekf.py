@@ -1,6 +1,6 @@
 """Fused on-device closed-loop fleet with an EKF observer in the feedback path.
 
-SURVEY §3.3's TPU mapping of the reference's SimpleControlLoop + observer
+SURVEY §3.3's accelerator mapping of the reference's SimpleControlLoop + observer
 (reference: hilo_mpc/modules/control_loop.py observers): controller solve,
 plant step, noisy measurement and EKF predict/update all fuse into ONE
 lax.scan body, vmapped over a fleet of scenarios — the device never syncs

@@ -1,8 +1,8 @@
-"""hilo_mpc_tpu — TPU-native machine-learning-supported optimal control & estimation.
+"""hilo_mpc_tpu — batched machine-learning-supported optimal control & estimation.
 
 Flat public API mirroring the reference's namespace (reference:
 hilo_mpc/__init__.py:43-101) so users of HILO-MPC find the same names; every
-implementation underneath is JAX/XLA/Pallas-native. See ARCHITECTURE.md.
+implementation underneath is JAX/XLA-native. See ARCHITECTURE.md.
 """
 from .core.model import Model
 from .core.series import OptimizationSeries, TimeSeries

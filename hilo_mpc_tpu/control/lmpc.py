@@ -121,20 +121,16 @@ class LMPC(NMPC):
         ub = np.tile(self._u_ub, N)
         return H, G, lb, ub
 
-    def optimize_batch_fgm(self, x0_batch, iters: int = 100, backend: str = "auto"):
-        """Batched condensed-QP solve via the Pallas fast-gradient kernel: H stays
-        VMEM-resident across iterations (ops/pallas_kernels.py). Returns the first
-        control moves (B, n_u)."""
-        from ..ops.pallas_kernels import fgm_boxqp_batch, fgm_boxqp_batch_xla
+    def optimize_batch_fgm(self, x0_batch, iters: int = 100):
+        """Batched condensed-QP solve by the projected fast gradient method
+        (ops/fgm.py). Returns the first control moves (B, n_u)."""
+        from ..ops.fgm import fgm_boxqp_batch
 
         if self._x_ref is not None or self._u_ref is not None:
             raise NotImplementedError("fgm fast path currently solves the "
                                       "regulation problem (no references)")
         H, G, lb, ub = self.condensed_qp()
         x0_batch = np.atleast_2d(np.asarray(x0_batch, dtype=float))
-        if backend == "xla":
-            U = fgm_boxqp_batch_xla(H, G, x0_batch, lb, ub, iters=iters)
-        else:
-            U = fgm_boxqp_batch(H, G, x0_batch, lb, ub, iters=iters)
+        U = fgm_boxqp_batch(H, G, x0_batch, lb, ub, iters=iters)
         nu = self._model.n_u
         return np.asarray(U)[:, :nu]

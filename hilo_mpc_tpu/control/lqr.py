@@ -1,6 +1,6 @@
 """Finite/infinite-horizon discrete-time LQR.
 
-TPU-native rebuild of the reference's LinearQuadraticRegulator (reference:
+Batched rebuild of the reference's LinearQuadraticRegulator (reference:
 hilo_mpc/modules/controller/lqr.py:34-307): the reference unrolls the Riccati iteration
 symbolically into one CasADi Function; here the backward recursion is a `lax.scan`
 (ops/riccati.py) and the control law u = -K x is a jitted closure. Bonus over the

@@ -1,6 +1,6 @@
 """Nonlinear model predictive control (and open-loop OCP).
 
-TPU-native rebuild of the reference's NMPC (reference: hilo_mpc/modules/controller/
+Batched rebuild of the reference's NMPC (reference: hilo_mpc/modules/controller/
 mpc.py:42-1930): where the reference assembles a flat CasADi NLP (decision vector
 v = [x_0..N, u_0..Nc, slacks], mpc.py:1440-1455) and hands it to IPOPT, this class keeps
 the multiple-shooting structure stagewise and solves it with the batched Riccati
@@ -36,9 +36,8 @@ _NLP_OPTION_KEYS = {
     "integration_method", "degree", "collocation_scheme", "substeps",
     "newton_iters", "max_iter", "tol", "mu_init", "warm_start", "print_level",
     "dt", "convexify", "n_linesearch", "early_exit", "u_pf_lb", "u_pf_ub",
-    "ipopt_debugger", "parallel_riccati", "pallas_riccati", "mehrotra",
-    "riccati_unroll", "pallas_full", "pallas_tile", "pallas_full_pack",
-    "pallas_vmem_mb", "const_cost_hessian", "lin_storage_dtype",
+    "ipopt_debugger", "parallel_riccati", "mehrotra", "riccati_unroll",
+    "const_cost_hessian", "lin_storage_dtype",
     "mi_neighbors",
     "mi_max_enum",
     "initial_guess",
@@ -466,9 +465,7 @@ class NMPC:
             return jnp.concatenate(parts)
 
         def take_static(vec, idx):
-            # static scalar indexing instead of a constant-index gather: keeps
-            # the traced graph free of non-scalar index constants, which the
-            # whole-solve Pallas kernel (ops/pallas_ip.py) cannot capture
+            # static scalar indexing instead of a constant-index gather
             return jnp.stack([vec[int(i)] for i in np.asarray(idx)])
 
         def quad_terms_cost(terms, ref_offset, x, u, du, p, t, th_path, theta):
@@ -741,19 +738,10 @@ class NMPC:
             n_linesearch=options.get("n_linesearch", 10),
             early_exit=options.get("early_exit", True),
             record_iterates=options.get("ipopt_debugger", False),
-            # opt-in: log-depth helps only for few-scenario long-horizon f64
-            # solves (measured on v5e: at B>=256 the chip is already saturated
-            # by the batch, and the scan's extra flops lose 4-15x)
+            # opt-in: log-depth pays only where the batch leaves the device
+            # idle (few scenarios, long horizons); its extra flops lose at
+            # large batch
             parallel_riccati=options.get("parallel_riccati", False),
-            pallas_riccati=options.get("pallas_riccati", False),
-            # whole-solve Pallas kernel for batched solves (ops/pallas_ip.py):
-            # the ENTIRE interior point (linearize/condense/Riccati/step) runs
-            # as one kernel, batch in lanes — engaged by solve_batch_fn when
-            # the problem shape qualifies (box-only constraints, pure Newton)
-            pallas_full=options.get("pallas_full", False),
-            pallas_tile=options.get("pallas_tile", 256),
-            pallas_full_pack=options.get("pallas_full_pack", 1),
-            pallas_vmem_mb=options.get("pallas_vmem_mb", None),
             # ~30% fewer IP iterations at identical solutions (ignored by the
             # solver when equality constraints are present)
             mehrotra=options.get("mehrotra", True),
@@ -826,9 +814,8 @@ class NMPC:
         # warm-started solves (closed loop) start from a near-optimal point: a
         # small initial barrier skips the early centering iterations
         # (mu never increases in the monotone scheme, so don't start too low)
-        # measured on v5e (B=32768 closed-loop regime): 1e-3 -> 3 IP
-        # iterations p50 vs 4 at 1e-2, +17% warm-start throughput, 100%
-        # convergence incl. online setpoint changes (ref_sc tests)
+        # 1e-3 saves one IP iteration over 1e-2 at full convergence, incl.
+        # online setpoint changes (ref_sc tests)
         _mu_cold = float(ip_opts.mu_init)
         _mu_warm = min(float(ip_opts.mu_init), 1e-3)
 
@@ -1676,10 +1663,10 @@ class NMPC:
             plt.show()
         return fig
 
-    # -- batched solve (TPU headline path) ------------------------------------
+    # -- batched solve (fleet path) -------------------------------------------
     def solve_batch_fn(self, warm: bool = False):
         """Return a jitted function (theta_B, xs0_B, X_init_B, U_init_B) -> OCPSolution
-        batched over scenarios — the ≥10k-solves/s path (BASELINE.json north star).
+        batched over scenarios — the fleet path (BASELINE.json configs[0]).
 
         warm=True uses the warm-start barrier schedule (smaller mu_init): pass
         it when the initial trajectories come from a previous solution (the
@@ -1693,28 +1680,6 @@ class NMPC:
         mu_val = (min(float(opts.mu_init), 1e-3) if warm
                   else float(opts.mu_init))
         bounds = self._bounds
-
-        if opts.pallas_full:
-            from ..ops.pallas_ip import (pallas_full_supported,
-                                         solve_ocp_pallas_full)
-            if pallas_full_supported(self._dims, bounds, opts, fix_x0=True):
-                funcs, dims = self._funcs, self._dims
-                # the whole-solve kernel reads mu_init statically
-                import dataclasses as _dc
-                opts_pl = _dc.replace(opts, mu_init=mu_val)
-
-                def solve_many_pl(theta_B, xs0_B, X_B, U_B):
-                    return solve_ocp_pallas_full(
-                        funcs, dims, bounds, theta_B, xs0_B, X_B, U_B,
-                        options=opts_pl, tile_b=opts.pallas_tile,
-                        pack=opts.pallas_full_pack,
-                        vmem_mb=opts.pallas_vmem_mb)
-
-                return jax.jit(solve_many_pl)
-            import warnings
-            warnings.warn("pallas_full requested but the problem shape is not "
-                          "kernel-eligible (needs box-only constraints, pure "
-                          "Newton steps, fix_x0); using the general XLA path")
 
         funcs, dims = self._funcs, self._dims
 

@@ -1,6 +1,6 @@
-"""Fixed-step ODE/DAE integrators for TPU.
+"""Fixed-step ODE/DAE integrators for accelerators.
 
-TPU-native replacement for the reference's CVODES/IDAS adaptive integrators and its
+Batched replacement for the reference's CVODES/IDAS adaptive integrators and its
 RK/collocation transcription (reference: hilo_mpc/modules/base.py:1713,
 hilo_mpc/util/modeling.py:1088-1314): adaptive stepping is compiler-hostile, so accuracy is
 bought with collocation degree / RK order / substeps, all with static shapes. Implicit
@@ -346,7 +346,7 @@ def make_step(
     elif m == "discrete":
         base = make_discrete_step(ode, alg, nz=nz, newton_iters=spec.newton_iters)
     elif m in ("cvodes", "idas"):
-        # Adaptive SUNDIALS integrators have no TPU-native analogue; map to high-order
+        # Adaptive SUNDIALS integrators have no fixed-cost analogue; map to high-order
         # implicit collocation which covers the same stiff/DAE ground at fixed cost.
         base = make_collocation_step(
             ode, alg, nx=nx, nz=nz, degree=max(spec.degree, 3), scheme="radau",

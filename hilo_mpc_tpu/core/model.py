@@ -1,6 +1,6 @@
 """Dynamic model: declaration, integration, simulation, linearization.
 
-TPU-native replacement for the reference's ``Model`` (reference:
+Batched replacement for the reference's ``Model`` (reference:
 hilo_mpc/modules/dynamic_model/dynamic_model.py:49-4369). Instead of building CasADi
 symbolic expressions and compiling them through C, a model's equations are pure JAX
 functions ``f(x, z, u, p, t)``; ``setup`` composes them with a fixed-step integrator

@@ -1,6 +1,6 @@
 """Solution storage: append-only named time series.
 
-TPU-native replacement for the reference's ``Series``/``TimeSeries``/``OptimizationSeries``
+Batched replacement for the reference's ``Series``/``TimeSeries``/``OptimizationSeries``
 (reference: hilo_mpc/modules/base.py:2157,3542,3720). Device arrays are brought to host
 numpy ring-append storage; per-variable access supports ``'x'``, a state name, ``'x:f'``
 (final), and ``'x:0'`` (initial) like the reference's accessor grammar.

@@ -1,6 +1,6 @@
 """Named variable specifications.
 
-TPU-native replacement for the reference's symbolic ``Container``/``Vector`` machinery
+JAX replacement for the reference's symbolic ``Container``/``Vector`` machinery
 (reference: hilo_mpc/modules/base.py:373,591): instead of named CasADi symbol vectors we
 keep a lightweight ordered name spec with metadata (units/labels/descriptions) and scaling,
 and the actual values are plain JAX arrays indexed positionally. Name-based access maps to

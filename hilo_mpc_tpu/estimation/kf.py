@@ -1,6 +1,6 @@
 """Kalman filters: linear KF, extended KF, unscented KF.
 
-TPU-native rebuild of the reference's filters (reference: hilo_mpc/modules/estimator/
+Batched rebuild of the reference's filters (reference: hilo_mpc/modules/estimator/
 kf.py:35-646). The reference propagates covariance by appending vec(P) as extra model
 states with Pdot = FP + PFᵀ + Q and calling the CasADi integrator; here the predict step
 is the model's discrete step function and P propagates with the *exact discrete-time*

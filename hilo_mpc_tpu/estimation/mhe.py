@@ -1,6 +1,6 @@
 """Moving-horizon estimation.
 
-TPU-native rebuild of the reference's MovingHorizonEstimator (reference: hilo_mpc/
+Batched rebuild of the reference's MovingHorizonEstimator (reference: hilo_mpc/
 modules/estimator/mhe.py:38-1251). The window NLP — decision vars x_0..N, process noise
 w_0..N-1, optionally estimated parameters; arrival + measurement + state-noise costs —
 maps onto the same stagewise interior-point engine as NMPC (ops/ip_solver.py) with
@@ -24,6 +24,7 @@ import numpy as np
 from ..core.integrators import IntegratorSpec, make_step
 from ..ops.ip_solver import (IPOptions, OCPBounds, OCPDims, OCPFunctions,
                              solve_ocp)
+from ..ops.riccati import sweep_unroll
 from ..utils.trace_cache import arr_key, registry_lookup, registry_store
 from .base import Estimator, _as_cov
 
@@ -279,18 +280,13 @@ class MovingHorizonEstimator(Estimator):
             fast = self._detect_affine_measurement(
                 meas, nz, nx, n_pe, pe_idx, m.n_p, nu)
         self.fast_path = bool(fast)
-        on_tpu = jax.default_backend() == "tpu"
         if self.fast_path:
-            # riccati_unroll/pallas_riccati are throughput levers only on the
-            # chip; off-TPU (CPU tests, interpret-mode Pallas) they cost
-            # compile time without winning anything
             _d = dict(n_linesearch=1, convexify=False, max_iter=25,
-                      riccati_unroll=(N if on_tpu else 1),
-                      pallas_riccati=on_tpu, const_cost_hessian=True)
+                      riccati_unroll=sweep_unroll(jax.default_backend(), N),
+                      const_cost_hessian=True)
         else:
             _d = dict(n_linesearch=10, convexify=True, max_iter=40,
-                      riccati_unroll=1, pallas_riccati=False,
-                      const_cost_hessian=False)
+                      riccati_unroll=1, const_cost_hessian=False)
 
         dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
         lbx = np.tile(self._x_lb, (N + 1, 1))
@@ -313,7 +309,7 @@ class MovingHorizonEstimator(Estimator):
         default_tol = 1e-7 if dtype == jnp.float64 else 1e-4
         # the NMPC throughput playbook applies unchanged to the window solve
         # (same stagewise IP engine): fewer line-search candidates, unrolled
-        # or Pallas-fused Riccati sweeps, Mehrotra — see docs/PERFORMANCE.md
+        # Riccati sweeps, Mehrotra — see docs/PERFORMANCE.md
         ip_opts = IPOptions(
             max_iter=options.get("max_iter", _d["max_iter"]),
             tol=options.get("tol", default_tol),
@@ -323,7 +319,6 @@ class MovingHorizonEstimator(Estimator):
             convexify=options.get("convexify", _d["convexify"]),
             early_exit=options.get("early_exit", True),
             riccati_unroll=options.get("riccati_unroll", _d["riccati_unroll"]),
-            pallas_riccati=options.get("pallas_riccati", _d["pallas_riccati"]),
             parallel_riccati=options.get("parallel_riccati", False),
             const_cost_hessian=options.get("const_cost_hessian",
                                            _d["const_cost_hessian"]))
@@ -415,7 +410,7 @@ class MovingHorizonEstimator(Estimator):
     def window_full(self) -> bool:
         return len(self._y_history) >= (self._horizon or 0) + 1
 
-    # -- batched windows (TPU-native addition; BASELINE north star) ------------
+    # -- batched windows (addition over the reference) -------------------------
     def _theta_batch(self, Ys, Us, x_arrivals, p_vec):
         m = self._model
         B, N = Ys.shape[0], self._horizon
@@ -497,7 +492,7 @@ class MovingHorizonEstimator(Estimator):
         multiplicatively perturbed initial guesses, mhe.py:386-399): instead of
         the reference's sequential re-solve loop, all perturbed window guesses
         are solved in ONE vmapped jit and the best converged objective wins —
-        the TPU-native form of restart-based robustification. ``pert_factor``
+        the batched form of restart-based robustification. ``pert_factor``
         scales the relative perturbation like the reference's kwarg."""
         if not self._setup_done:
             raise RuntimeError("call setup() first")

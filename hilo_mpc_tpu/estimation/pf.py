@@ -1,6 +1,6 @@
 """Sampling-importance-resampling particle filter.
 
-TPU-native rebuild of the reference's ParticleFilter (reference: hilo_mpc/modules/
+Batched rebuild of the reference's ParticleFilter (reference: hilo_mpc/modules/
 estimator/pf.py:36-452): particles propagate through the model integrator with process
 noise via one `vmap` (the reference loops in Python over np arrays), Gaussian likelihood
 weights, systematic resampling (cumsum + searchsorted — branchless, unlike
@@ -89,7 +89,7 @@ class ParticleFilter(Estimator):
             parts_pr = prop(parts)
             # sample w ~ N(0, Q) via the unrolled Cholesky — the stock
             # multivariate_normal decomposes Q with an SVD on every call,
-            # which dominates the whole filter step on TPU
+            # which would dominate the whole filter step
             Lq = chol_small(Q + 1e-12 * jnp.eye(nx, dtype=parts.dtype))
             noise = jax.random.normal(k1, (n_part, nx), parts.dtype) @ Lq.T
             parts_pr = parts_pr + noise

@@ -1,6 +1,6 @@
 """Gaussian process regression with exact inference and hyperparameter fitting.
 
-TPU-native rebuild of the reference's GaussianProcess/GPArray (reference: hilo_mpc/
+Batched rebuild of the reference's GaussianProcess/GPArray (reference: hilo_mpc/
 modules/machine_learning/gp/gp.py:80-1008). The reference builds the posterior as
 CasADi SX and fits with IPOPT or a SciPy fallback (gp.py:609-634); here the negative
 log marginal likelihood is a pure JAX function over unconstrained (log-space)
@@ -511,7 +511,7 @@ class GaussianProcess:
             return
         # evaluate the gram with the accelerator (cheap, well-conditioned) but
         # FACTORIZE on the host in float64: with small noise the system is
-        # condition ~1/(sn2+jitter) and f32 (worse: TPU bf16) factorizations
+        # condition ~1/(sn2+jitter) and f32 (worse: TF32 or bf16) factorizations
         # give backend-dependent garbage for L/alpha. This runs once per fit,
         # eagerly — predictions stay fully traced/jittable via the stored state.
         X = jnp.asarray(self.X_train)
@@ -625,8 +625,7 @@ class GaussianProcess:
             w_best = res.x
         elif solver == "adam":
             # whole optimization as ONE device dispatch (lax.scan over steps) —
-            # a Python-loop fit pays a host round-trip per step, which is ruinous
-            # over remote-TPU tunnels
+            # a Python-loop fit pays a host round-trip per step
             import optax
 
             tx = optax.adam(learning_rate)

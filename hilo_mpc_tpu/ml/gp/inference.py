@@ -33,7 +33,8 @@ class ExactInference(Inference):
         floor = jitter * jnp.mean(jnp.diagonal(K))
         K = K + (noise_variance + floor) * jnp.eye(n, dtype=K.dtype)
         with jax.default_matmul_precision("highest"):
-            # TPU-default bf16 matmuls corrupt the factorization enough to
+            # reduced-precision default matmuls (TF32 on the GPU) corrupt the
+            # factorization enough to
             # flip posterior variances negative — GP numerics always run full
             L = jnp.linalg.cholesky(K)
             m = jax.vmap(lambda a: mean.eval(params, a))(X)

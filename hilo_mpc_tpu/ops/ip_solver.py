@@ -1,6 +1,6 @@
 """Stagewise nonlinear primal-dual interior-point solver for optimal control.
 
-TPU-native replacement for IPOPT as used by the reference's NMPC/MHE/OCP solves
+Batched replacement for IPOPT as used by the reference's NMPC/MHE/OCP solves
 (reference: hilo_mpc/modules/controller/mpc.py:1778-1787, modules/estimator/mhe.py). The
 NLP never materializes as a flat sparse matrix: the multiple-shooting structure is kept
 stagewise, each IP iteration linearizes dynamics/costs/constraints per stage (vmapped over
@@ -32,8 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from .riccati import (backward_sweep, make_lq_solver_pallas, solve_lq,
-                      solve_lq_parallel)
+from .riccati import backward_sweep, solve_lq, solve_lq_parallel
 
 
 class OCPFunctions(NamedTuple):
@@ -85,9 +84,8 @@ class IPOptions:
     theta_mu: float = 1.5        # superlinear mu reduction exponent
     kappa_eps: float = 10.0      # barrier-subproblem tolerance = kappa_eps * mu
     tau_min: float = 0.99        # fraction-to-boundary
-    # measured on v5e (B=4096 CSTR): 10 -> 27k, 6 -> 37k, 4 -> 52k solves/s with
-    # identical convergence on every stress case (incl. min-time bang-bang); each
-    # candidate re-evaluates the horizon rollout, so fewer is much cheaper
+    # each candidate re-evaluates the horizon rollout, so fewer is cheaper;
+    # 6 keeps convergence on every stress case (incl. min-time bang-bang)
     n_linesearch: int = 6        # backtracking candidates (halvings)
     reg: float = 1e-8            # Riccati control-Schur regularization
     convexify: bool = True       # eigenvalue-clip indefinite cost Hessians
@@ -107,30 +105,10 @@ class IPOptions:
     rho_eq_max: float = 1e7
     record_iterates: bool = False  # keep per-iteration (X, U, kkt, mu, obj) history
     parallel_riccati: bool = False  # O(log N)-depth associative-scan KKT solve
-    # batched sweeps as ONE fused Pallas kernel (batch in lanes, stages
-    # unrolled in VMEM); engages under vmap via custom_vmap, f32 only
-    pallas_riccati: bool = False
-    # sublane packing of the Pallas sweep kernel: 8 = features fill whole
-    # (8, tile) VREG tiles (2.35x faster standalone, tools/roofline.py);
-    # 1 = legacy (1, tile) lane stripes
-    pallas_pack: int = 8
-    # whole-SOLVE Pallas kernel (ops/pallas_ip.py): the full IP loop in one
-    # kernel launch, nothing between iterations touches HBM. Box-constrained
-    # pure-Newton problems only; engaged by batched entry points
-    # (NMPC.solve_batch_fn) when `pallas_full_supported` holds, f32 only
-    pallas_full: bool = False
-    pallas_tile: int = 256       # lanes per grid step of the whole-solve kernel
-    # sublane packing of the whole-solve kernel. pack=4 is the largest
-    # compilable packed layout at the flagship shape (N=20: 526 s Mosaic
-    # compile, converges; pack=8 is compile-pathological >30 min) and needs
-    # pallas_vmem_mb >= 32 for its flattened-lane AD stack (measured
-    # 2026-08-21, tools/probe_pallas_compile.py)
-    pallas_full_pack: int = 1
-    pallas_vmem_mb: Optional[float] = None
     mehrotra: bool = False       # predictor-corrector with adaptive centering
     # lax.scan unroll factor for the Riccati sweeps: unrolling lets XLA fuse
-    # across stages and trims per-step loop overhead (measured on v5e: the
-    # sweeps dominate iteration time at small nx/nu; see tools/profile_ip.py)
+    # across stages and trims per-step loop overhead, at the price of compile
+    # time (riccati.sweep_unroll is the platform rule MHE applies)
     riccati_unroll: int = 1
     # treat the cost Hessian blocks as constant (exact for quadratic costs):
     # they are evaluated once at the initial point instead of every iteration,
@@ -139,9 +117,8 @@ class IPOptions:
     # Hessian with rho). NMPC auto-enables this for pure quadratic costs.
     const_cost_hessian: bool = False
     # store the per-stage linearization tensors (A, B, Hessian blocks,
-    # constraint jacobians) in bfloat16 between production and consumption —
-    # the HBM-roofline lever (b) from docs/PERFORMANCE.md: the solve is
-    # bandwidth-bound and these tensors dominate the per-iteration bytes.
+    # constraint jacobians) in bfloat16 between production and consumption:
+    # these tensors dominate the per-iteration device-memory bytes.
     # Gradients, values and the Newton algebra stay f32 (bf16 tensors promote
     # at use). KKT stationarity is then only trustworthy to ~1e-3 relative,
     # so use with tol >= 1e-3 and verify convergence on your problem.
@@ -247,9 +224,9 @@ def solve_ocp(
     traced scalar): cold- and warm-start solvers differ only in the initial
     barrier, so passing it dynamically lets both share ONE trace and ONE
     compiled executable instead of two per configuration."""
-    # TPU MXU matmuls default to bf16 inputs; the Riccati/Newton arithmetic needs
-    # full f32 to reach 1e-4 KKT tolerances (measured: bf16 default -> 12% batch
-    # convergence, full f32 -> 100%)
+    # f32 matmuls at default precision may run in TF32 on the GPU (about three
+    # decimal digits); the Riccati/Newton arithmetic needs full f32 to reach
+    # 1e-4 KKT tolerances
     with jax.default_matmul_precision("highest"):
         return _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init,
                                options, fix_x0, mu0)
@@ -614,10 +591,6 @@ def _solve_ocp_impl(funcs, dims, bounds, theta, x0, X_init, U_init, options,
         r_dyn = F - X[1:]
         if opt.parallel_riccati:
             lq_solver = solve_lq_parallel
-        elif opt.pallas_riccati:
-            lq_solver = make_lq_solver_pallas(reg=opt.reg,
-                                              unroll=opt.riccati_unroll,
-                                              pack=opt.pallas_pack)
         else:
             lq_solver = partial(solve_lq, unroll=opt.riccati_unroll)
 

@@ -5,7 +5,7 @@ NonlinearProgram wrappers (reference: hilo_mpc/modules/optimizer.py:47-772), whi
 delegate to ca.nlpsol/qpsol (IPOPT/qpoases). Here a dense primal-dual interior-point
 solver — the unstructured sibling of the stagewise OCP engine (ops/ip_solver.py) —
 handles min f(x) s.t. lbx<=x<=ubx, lbg<=g(x)<=ubg with exact JAX Hessians; jittable and
-vmappable, so parameter sweeps of small programs batch onto the MXU.
+vmappable, so parameter sweeps of small programs run as one batch.
 """
 from __future__ import annotations
 

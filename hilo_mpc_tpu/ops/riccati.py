@@ -1,11 +1,11 @@
 """Riccati block elimination for stagewise (block-banded) KKT systems.
 
-This is the factorization core of the NMPC/MHE engine — the TPU-native replacement for
+This is the factorization core of the NMPC/MHE engine — the batched replacement for
 the sparse KKT factorizations IPOPT/qpoases perform inside the reference's solver calls
 (reference: hilo_mpc/modules/controller/mpc.py:1780, mpc.py:2276). The horizon recursion
 runs as a `lax.scan`; every per-stage operation is dense small-matrix algebra that, once
-`vmap`-ed over thousands of scenarios, becomes large batched einsums XLA tiles onto the
-MXU. Infinite-horizon/LQR gains reuse the same sweep.
+`vmap`-ed over thousands of scenarios, becomes elementwise work across the batch.
+Infinite-horizon/LQR gains reuse the same sweep.
 
 Equality-constrained LQ problem solved here:
 
@@ -104,23 +104,21 @@ def solve_lq_parallel(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
     (backward) and trajectory (forward) recursions run as associative scans —
     the parallelization of the Riccati recursion (PAPERS.md: Särkkä &
     García-Fernández temporal parallelization; dual-regularized Riccati IP).
-    On TPU this turns the horizon from a serial chain into a log-depth tree of
-    batched small-matrix composes.
+    On an accelerator this turns the horizon from a serial chain into a
+    log-depth tree of batched small-matrix composes.
 
-    When to use (measured on v5e): only for FEW scenarios with LONG horizons —
-    i.e. when the chip is otherwise idle along the batch dimension. At
-    production batch sizes (B >= 256) the sequential sweep already saturates the
-    chip and this variant's ~3x flops make it slower. It is therefore opt-in
-    (IPOptions.parallel_riccati).
+    When to use: only for FEW scenarios with LONG horizons — i.e. when the
+    device is otherwise idle along the batch dimension. At large batch the
+    sequential sweep already fills the device and this variant's ~3x flops
+    make it slower. It is therefore opt-in (IPOptions.parallel_riccati).
 
-    Precision (measured on v5e, N=256 random stagewise LQ, f32 vs f64 truth):
-    under the solver's mandatory `default_matmul_precision("highest")` this scan
-    is as accurate as the sequential sweep (2.9e-7 vs 5.8e-7 rel. control
-    error); a square-root/QR-composed variant was prototyped and measured to
-    give NO improvement (9.6e-7, and NaNs first on extreme κ~1e9 problems), so
-    it was dropped. The only precision hazard is TPU-default bf16 matmuls,
-    which degrade ALL variants equally to ~5e-3 — never run the KKT path at
-    default matmul precision (see solve_ocp).
+    Precision: under the solver's `default_matmul_precision("highest")` this
+    scan is as accurate as the sequential sweep on random stagewise LQ
+    problems (f32 against f64 truth); a square-root/QR-composed variant gave
+    no improvement and NaNs first on extreme κ~1e9 problems, so it was
+    dropped. The precision hazard is a reduced-precision default matmul
+    (TF32 on the GPU), which degrades ALL variants equally — never run the
+    KKT path at default matmul precision (see solve_ocp).
 
     Method: per-stage cross/linear control terms are eliminated by completing the
     square (u = ũ - R⁻¹(S dx + r)), stages become conditional-value-function
@@ -260,65 +258,10 @@ def dare_solve(A, B, Q, R, iters: int = 200):
     return K, P
 
 
-def make_lq_solver_pallas(reg: float = 1e-9, unroll: int = 1, pack: int = 8):
-    """`solve_lq` with a batched fast path: under `vmap`, the whole batch is
-    dispatched to the fused Pallas sweep kernel (ops/pallas_kernels.py:
-    riccati_lq_pallas) via `jax.custom_batching.custom_vmap`; unbatched calls
-    fall back to the XLA sweeps. f32 only (the kernel's lane layout).
-    ``pack``: sublane packing of the kernel (8 = full-VREG tiles, 1 = legacy
-    lane stripes; see riccati_lq_pallas)."""
-    from jax.custom_batching import custom_vmap
+def sweep_unroll(platform: str, N: int) -> int:
+    """`lax.scan` unroll factor of the XLA Riccati sweeps for a platform.
 
-    from .pallas_kernels import riccati_lq_pallas
-
-    @custom_vmap
-    def f(A, B, Q, S, R, q, r, c, P_term, p_term, dx0):
-        return solve_lq(A, B, Q, S, R, q, r, c, P_term, p_term, dx0,
-                        reg=reg, unroll=unroll)
-
-    @f.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [x if b else jnp.broadcast_to(x, (axis_size,) + x.shape)
-                for x, b in zip(args, in_batched)]
-        batched = LQSolution(dX=True, dU=True, lam=True, K=True, kff=True,
-                             cost_red=True)
-        # lane-tile cap keeps the kernel inside the default 16MB scoped VMEM
-        # (pack=8 holds 8x the rows per lane column — see riccati_lq_pallas);
-        # in interpret mode (CPU tests) there is no hardware lane constraint —
-        # a small tile avoids emulating hundreds of padded lanes
-        # small batches: pack>1 would pad to pack*128 lanes (e.g. B=128 at
-        # pack=8 computes 8x padded work) — fall back to pack=1 so the
-        # padding granularity stays at the 128-lane tile floor
-        eff_pack = pack if axis_size >= pack * 128 else 1
-        if jax.default_backend() != "tpu":
-            tile = min(64, max(8, -(-axis_size // 8) * 8))
-        else:
-            # on hardware the kernel picks its own VMEM-aware lane tile /
-            # packing (riccati_lq_pallas: shrinks tile then pack so the
-            # double-buffered pipeline fits the scoped-VMEM budget at any
-            # nx/N — a fixed tile OOMs beyond the nx=2 flagship shapes)
-            tile = None
-        if args[0].dtype != jnp.float32:
-            # the kernel's lane layout is f32-only; f64 solves (CPU parity
-            # checks) take the XLA sweeps
-            out = jax.vmap(lambda *a: solve_lq(*a, reg=reg, unroll=unroll)
-                           )(*args)
-            return out, batched
-        dX, dU, lam, K, kff, dec = riccati_lq_pallas(*args, reg=reg,
-                                                     tile_b=tile,
-                                                     pack=eff_pack)
-        out = LQSolution(dX=dX, dU=dU, lam=lam, K=K, kff=kff, cost_red=dec)
-        return out, batched
-
-    # custom_vmap functions take positional arrays only, so reg is bound at
-    # factory time; reject a conflicting per-call value instead of ignoring it
-    factory_reg = reg
-
-    def wrapped(*args, reg=None):
-        if reg is not None and reg != factory_reg:
-            raise ValueError(
-                f"make_lq_solver_pallas was built with reg={factory_reg}; "
-                f"per-call reg={reg} is not supported — rebuild the solver")
-        return f(*args)
-
-    return wrapped
+    On the GPU the fully unrolled sweeps (N) let XLA fuse across stages; on
+    the CPU unrolling only costs compile time, so the scan stays rolled (1).
+    """
+    return N if platform == "gpu" else 1

@@ -1,9 +1,8 @@
-"""Fusable small-matrix linear algebra for TPU hot loops.
+"""Fusable small-matrix linear algebra for accelerator hot loops.
 
-XLA lowers `jnp.linalg.cholesky/solve` to blocked while-loop routines whose
-per-call latency (~1 ms on a v5e at any batch size) dwarfs the actual FLOPs for
-the nx/nu/ny-sized blocks that dominate control and estimation sweeps
-(measured: tools/microbench_linalg.py). These helpers unroll the index
+XLA lowers `jnp.linalg.cholesky/solve` to blocked while-loop routines or
+library calls whose per-call latency dwarfs the actual FLOPs for the
+nx/nu/ny-sized blocks that dominate control and estimation sweeps. These helpers unroll the index
 arithmetic into plain elementwise expressions that XLA fuses into the
 surrounding kernel — exact (no iteration), batched over leading dims, and
 `vmap`/`grad`-compatible.
@@ -148,8 +147,9 @@ def mm_small(X, Y):
 
     XLA fuses elementwise+reduce chains into single kernels but never fuses
     `dot_general`s with each other; inside latency-bound sequential sweeps the
-    broadcast-multiply-sum form is ~8x faster at control-problem block sizes
-    (measured on v5e, tools/profile_ip.py). Falls back to `@` above n=8.
+    broadcast-multiply-sum form avoids one kernel launch per product at
+    control-problem block sizes (tools/profile_ip.py). Falls back to `@`
+    above n=8.
     """
     if X.shape[-1] <= _MM_UNROLL and X.shape[-2] <= _MM_UNROLL \
             and Y.shape[-1] <= _MM_UNROLL:

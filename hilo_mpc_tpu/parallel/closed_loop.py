@@ -1,6 +1,6 @@
 """Fused on-device closed loop: controller solve + plant step inside one lax.scan.
 
-SURVEY.md §3.3's TPU mapping of the reference's SimpleControlLoop: "this whole loop is
+SURVEY.md §3.3's accelerator mapping of the reference's SimpleControlLoop: "this whole loop is
 the rollout; batched over scenarios it becomes one lax.scan whose body fuses
 controller-solve + plant-step". Thousands of closed-loop simulations (e.g. controller
 tuning sweeps, scenario studies, Monte-Carlo verification of chance constraints) run
@@ -303,7 +303,7 @@ def fused_closed_loop_ekf_fn(nmpc, plant_model, ekf, steps: int,
                              meas_noise_std: Optional[np.ndarray] = None):
     """Fused loop with an EKF observer in the feedback path: controller solve
     + plant step + measurement + EKF predict/update, all inside one lax.scan
-    body (SURVEY §3.3's TPU mapping of SimpleControlLoop WITH an observer —
+    body (SURVEY §3.3's accelerator mapping of SimpleControlLoop WITH an observer —
     reference: control_loop.py observers, modules/estimator KF path). The
     controller only ever sees the estimate; the true state is returned for
     estimation-error studies.

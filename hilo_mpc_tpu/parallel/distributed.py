@@ -4,15 +4,15 @@ The reference is single-process CPU (SURVEY.md §2.9) — this is the DCN story 
 never had. One JAX process runs per host; `initialize()` wires them into one
 global runtime (coordinator handshake), after which `jax.devices()` is the
 GLOBAL device list, a `Mesh` built over it spans hosts, and `jit` inserts the
-cross-host collectives (convergence reductions ride ICI within a slice and DCN
-across slices — scaling-book recipe). Scenario batches are assembled per host
+cross-host collectives (convergence reductions ride NVLink within a host and the
+network across hosts — scaling-book recipe). Scenario batches are assembled per host
 with `global_batch` (`jax.make_array_from_process_local_data`), so no host ever
 materializes the full batch.
 
-Typical pod-slice launch (same program on every host):
+Typical multi-host launch (same program on every host):
 
     from hilo_mpc_tpu.parallel import distributed as dist
-    dist.initialize()                       # env-driven on TPU pods
+    dist.initialize()                       # env-driven (SLURM, JAX_* vars)
     mesh = dist.global_mesh()
     theta_g = dist.global_batch(theta_local, mesh)
     ...
@@ -38,8 +38,8 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids: Optional[Sequence[int]] = None) -> bool:
     """Initialize `jax.distributed` (idempotent).
 
-    With no arguments, defers to JAX's automatic cluster detection (TPU pods,
-    GKE, SLURM) or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    With no arguments, defers to JAX's automatic cluster detection (GKE,
+    SLURM) or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
     JAX_PROCESS_ID environment variables. Returns True when a multi-process
     runtime is active after the call, False for the single-process fallback.
     """
@@ -53,8 +53,9 @@ def initialize(coordinator_address: Optional[str] = None,
     if process_id is None and os.environ.get("JAX_PROCESS_ID"):
         process_id = int(os.environ["JAX_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # single-process (or auto-detected TPU pod): let JAX decide; calling
-        # initialize() without a coordinator is only valid on cloud TPU pods
+        # single-process (or an auto-detected cluster): let JAX decide;
+        # initialize() without a coordinator is only valid where JAX can
+        # detect the cluster itself
         try:
             jax.distributed.initialize()
             _initialized = True

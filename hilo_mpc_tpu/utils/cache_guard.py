@@ -120,8 +120,8 @@ def install_cache_crash_guard(mode: Optional[str] = None,
             return
         if getattr(backend, "platform", "cpu") != "cpu":
             # the serialize abort is XLA:CPU-specific; other backends keep
-            # the plain in-process write (forking under a remote-TPU client
-            # is riskier than the crash it would prevent)
+            # the plain in-process write, so a process that holds a GPU is
+            # never forked
             return orig_put(cache_key, module_name, executable, backend,
                             compile_time)
         try:

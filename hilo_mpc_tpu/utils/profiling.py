@@ -1,5 +1,5 @@
 """Tracing/profiling helpers (SURVEY.md §5: reference has only wall-clock `extime`
-stats, mpc.py:815-835; the TPU build adds JAX profiler traces + per-solve stats)."""
+stats, mpc.py:815-835; this build adds JAX profiler traces + per-solve stats)."""
 from __future__ import annotations
 
 import contextlib

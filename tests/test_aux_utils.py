@@ -81,8 +81,8 @@ class TestSessionTempDir:
 
 
 class TestRooflineAccounting:
-    """tools/roofline.py: the analytic FLOP/byte counters that back the MFU
-    numbers in ROOFLINE.json must stay consistent with the kernel's algebra."""
+    """tools/roofline.py: the analytic FLOP/byte counters behind its roofline
+    shares must stay consistent with the sweep's algebra."""
 
     def _tool(self):
         import sys
@@ -132,11 +132,22 @@ class TestRooflineAccounting:
         rl = self._tool()
 
         class Dev:
-            device_kind = "TPU v5 lite"
+            device_kind = "NVIDIA H100 80GB HBM3"
 
         p = rl._peaks_for(Dev())
-        assert p["hbm_Bps"] == 819e9
-        assert p["mxu_bf16"] == 197e12
+        assert p["hbm_Bps"] == 3.35e12
+        assert p["bf16_dense"] == 989e12
+        assert p["device_kind"] == "NVIDIA H100 80GB HBM3"
+
+    @pytest.mark.parametrize("kind", ["", "cpu", "NVIDIA A100-SXM4-80GB"])
+    def test_unknown_device_raises(self, kind):
+        rl = self._tool()
+
+        class Dev:
+            device_kind = kind
+
+        with pytest.raises(ValueError, match="no published peaks"):
+            rl._peaks_for(Dev())
 
     def test_counter_counts_each_op_once(self):
         rl = self._tool()

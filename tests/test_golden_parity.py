@@ -104,7 +104,7 @@ def test_cstr_plant_twin_matches_model():
     for _ in range(5):
         x_np = rk4_np(cstr_ode_np, x_np, u, 0.1)
     out = m.simulate(u=np.tile(u, (5, 1)), steps=5)
-    # Model's simulate path runs f32 by default (TPU-first design choice,
+    # Model's simulate path runs f32 by default (accelerator-first design,
     # core/model.py:60) — agreement at f32 resolution proves same discrete
     # map; the u-parity tests above replay EXACT stored states, so plant
     # precision does not enter the 1e-4 budget

@@ -219,7 +219,7 @@ class TestRoutingAndKnobs:
         assert gp.log_marginal_likelihood >= before - 1e-6
 
     def test_adam_fit_path(self):
-        # the on-device fit (one lax.scan dispatch — the TPU path, no host
+        # the on-device fit (one lax.scan dispatch — the device path, no host
         # round-trips) must differentiate through the KL sweeps too
         X, y = _clusters(n=12, seed=9)
         gp = GP(["x"], ["c"], likelihood="logistic", inference="kl")

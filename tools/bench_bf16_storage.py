@@ -1,10 +1,10 @@
 """Same-day A/B of bf16 linearization storage (IPOptions.lin_storage_dtype).
 
-docs/PERFORMANCE.md lever (b): the flagship solve is HBM-bandwidth bound at
-~76% of peak with f32 linearization tensors; storing the per-stage
-A/B/Hessian/constraint-jacobian blocks in bf16 between production and
-consumption can halve the dominant per-iteration bytes IF the converts land
-on XLA fusion boundaries. This tool measures, same chip + same process:
+The flagship solve moves its per-stage linearization tensors through device
+memory every IP iteration; storing the A/B/Hessian/constraint-jacobian
+blocks in bf16 between production and consumption can halve those bytes IF
+the converts land on XLA fusion boundaries. This tool measures, same card +
+same process:
 
   * solves/s at batch B for f32 vs bf16 storage (interleaved reps),
   * convergence rate and median iterations,
@@ -54,8 +54,8 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from hilo_mpc_tpu.utils.compile_cache import use_compile_cache
+    use_compile_cache()
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import __graft_entry__ as ge

@@ -1,23 +1,17 @@
-"""Benchmark breadth: NMPC chip throughput beyond the toy state dimension.
+"""Benchmark breadth: batched NMPC throughput on the GPU beyond the toy state
+dimension, same methodology as bench.py:
 
-VERDICT r4 directive 3: every headline number was measured at nx=2 (CSTR).
-This measures batched tracking NMPC on the real chip for three state
-dimensions, same-day, same methodology as bench.py:
+  * cstr       — nx=2, nu=1, N=20 (the flagship)
+  * cartpole   — nx=4, nu=1, N=30 (stabilization from perturbed states:
+                 4x4 per-stage blocks)
+  * bioreactor — nx=7, nu=2, N=20 (Lee-Ramirez fed-batch regulation)
 
-  * cstr       — nx=2, nu=1, N=20 (the flagship; the A/B anchor)
-  * cartpole   — nx=4, nu=1, N=30 (stabilization from perturbed states,
-                 the kernel-stress case: 4x4 per-stage blocks)
-  * bioreactor — nx=7, nu=2, N=20 (Lee-Ramirez fed-batch tracking; above
-                 the Pallas sweep kernel's design point, so the XLA-sweep
-                 path is A/B'd against it)
-
-Reports solves/s (cold + warm-shifted), convergence, iters p50, XLA
-flops/bytes per solve and the binding resource; writes the rows into
-ROOFLINE.json["dims"] and a table into BENCH_SWEEP.md.
+Reports solves/s (cold + warm-shifted),
+convergence, iters p50, XLA flops/bytes per solve and the binding resource;
+writes the rows into results/ROOFLINE.json["dims"].
 
 Usage: python tools/bench_dims.py [--quick]
 """
-import dataclasses
 import json
 import os
 import sys
@@ -64,8 +58,7 @@ def build_cartpole(N=30):
     nmpc.setup(options={"dt": 0.05, "integration_method": "rk4",
                         "tol": 1e-4, "max_iter": 40, "convexify": False,
                         "n_linesearch": 4, "mu_init": 1e-2,
-                        "mehrotra": False, "riccati_unroll": N,
-                        "pallas_riccati": True})
+                        "mehrotra": False, "riccati_unroll": N})
     return nmpc
 
 
@@ -81,7 +74,7 @@ def bioreactor_ref():
     return np.asarray(out["x"][-1]), np.array(x0)
 
 
-def build_bioreactor(N=20, pallas=True):
+def build_bioreactor(N=20):
     from hilo_mpc_tpu import NMPC
     from hilo_mpc_tpu.library import ecoli_D1210_fedbatch
 
@@ -96,13 +89,11 @@ def build_bioreactor(N=20, pallas=True):
     # pure-Newton (ls1): the l1 merit check rejects good steps here (21%
     # conv vs 100% without it); mehrotra's adaptive mu diverges on this
     # problem (mu -> 4e5 measured). Regulation regime: see batch_x0 —
-    # tracking x_ref from FAR remains a GN-solver hard case, documented in
-    # BENCH_SWEEP.md
+    # tracking x_ref from FAR remains a GN-solver hard case
     nmpc.setup(options={"dt": 0.5, "integration_method": "rk4",
                         "tol": 1e-4, "max_iter": 40, "convexify": False,
                         "n_linesearch": 1, "mu_init": 1e-2,
-                        "mehrotra": False, "riccati_unroll": N,
-                        "pallas_riccati": pallas})
+                        "mehrotra": False, "riccati_unroll": N})
     return nmpc
 
 
@@ -170,13 +161,9 @@ def measure(nmpc, x0s, reps=3):
 
 
 def cost_analysis(nmpc, x0s):
-    """XLA flops/bytes per solve, ONE while-trip (Pallas off: the kernel is
-    an opaque custom call with no cost model)."""
+    """XLA flops/bytes per solve, ONE while-trip."""
     import jax
 
-    nmpc._ip_opts = dataclasses.replace(nmpc._ip_opts, pallas_riccati=False)
-    nmpc._solve_batch_jit = None
-    nmpc._trace_entry = None
     args = nmpc.prepare_batch(x0s)
     fn = nmpc.solve_batch_fn()
     B = x0s.shape[0]
@@ -193,10 +180,11 @@ def cost_analysis(nmpc, x0s):
 
 
 def main():
+    from hilo_mpc_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     from tools.roofline import _peaks_for
 
     quick = "--quick" in sys.argv
@@ -208,10 +196,8 @@ def main():
         ("cstr", lambda: build_cstr(), 131072, {"nx": 2, "nu": 1, "N": 20}),
         ("cartpole", lambda: build_cartpole(), 65536,
          {"nx": 4, "nu": 1, "N": 30}),
-        ("bioreactor", lambda: build_bioreactor(pallas=True), 32768,
-         {"nx": 7, "nu": 2, "N": 20, "riccati": "pallas"}),
-        ("bioreactor_xla", lambda: build_bioreactor(pallas=False), 32768,
-         {"nx": 7, "nu": 2, "N": 20, "riccati": "xla_unrolled"}),
+        ("bioreactor", lambda: build_bioreactor(), 32768,
+         {"nx": 7, "nu": 2, "N": 20}),
     ]
     out = {}
     for name, build, B, dims in configs:
@@ -236,7 +222,7 @@ def main():
                     "hbm_util_vs_xla_est": bw / peaks["hbm_Bps"],
                     "binding_resource": (
                         "HBM bandwidth" if bw >= 0.6 * peaks["hbm_Bps"]
-                        else "VPU issue rate / op serialization"),
+                        else "f32 issue rate / op serialization"),
                 }
         except Exception as e:
             res = {"error": f"{type(e).__name__}: {e}"}
@@ -248,8 +234,9 @@ def main():
                   f"conv {res['cold']['converged']:.3f} "
                   f"iters_p50 {res['cold']['iters_p50']}", file=sys.stderr)
 
-    target = os.path.join(ROOT, "ROOFLINE.json")
-    from roofline import merge_report
+    target = os.path.join(ROOT, "results", "ROOFLINE.json")
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    from tools.roofline import merge_report
 
     merge_report({"dims": out}, target)
     print(json.dumps({"dims": out}))

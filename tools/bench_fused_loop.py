@@ -1,10 +1,9 @@
-"""Chip benchmark: the fused on-device closed loop (SURVEY §3.3 TPU mapping).
+"""GPU benchmark: the fused on-device closed loop (SURVEY §3.3).
 
 Measures closed-loop steps/s (one step = one warm-started NMPC solve + one
 plant RK4 step, fused inside a lax.scan body) at production batch, and the
 EKF-in-the-feedback-path variant (solve + plant step + noisy measurement +
-EKF predict/update per step). Replaces the stale round-1 figure (45k steps/s
-at B=256, CHANGELOG).
+EKF predict/update per step).
 
 Usage: python tools/bench_fused_loop.py [B] [steps] [reps]
 Prints one JSON line per variant.
@@ -28,8 +27,8 @@ def _build(N=20):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from hilo_mpc_tpu.utils.compile_cache import use_compile_cache
+    use_compile_cache()
 
     from hilo_mpc_tpu.estimation import ExtendedKalmanFilter
     from hilo_mpc_tpu.library import cstr_schaffner_and_zeitz

@@ -25,8 +25,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from hilo_mpc_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
+use_compile_cache()
 
 import numpy as np  # noqa: E402
 
@@ -47,7 +47,6 @@ def main():
     from hilo_mpc_tpu.parallel import sharded_solve_fn
 
     nmpc = ge._build_nmpc(N=4, tol=1e-6, max_iter=12)
-    # NOTE: pallas interpret mode is slow on CPU; the tiny dryrun config keeps it
     B_global = 16
     full = ge._batch_inputs(nmpc, B_global)           # same seed on every host
     sl = dist.local_slice(B_global)

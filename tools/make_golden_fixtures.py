@@ -30,8 +30,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from hilo_mpc_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
+use_compile_cache()
 
 from golden_configs import CONFIGS  # noqa: E402
 from golden_oracle import SolveCapture, oracle_solve  # noqa: E402

@@ -85,8 +85,6 @@ def extra():
     for name, opts in [
         ("it2_u", {"max_iter": 2, "riccati_unroll": 21}),
         ("it10_u", {"max_iter": 10, "riccati_unroll": 21}),
-        ("it2_pl", {"max_iter": 2, "pallas_riccati": True}),
-        ("it10_pl", {"max_iter": 10, "pallas_riccati": True}),
     ]:
         t, conv = timed_solve(opts, B=B)
         print(f"{name:18s} t={t*1e3:8.2f} ms  conv={conv:.3f}", flush=True)

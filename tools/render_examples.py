@@ -27,8 +27,8 @@ import os, sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[1])))
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from hilo_mpc_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
+use_compile_cache()
 import matplotlib
 matplotlib.use("Agg")
 path = sys.argv[1]

@@ -1,29 +1,30 @@
-"""Roofline for the batched MHE window solve (VERDICT r3 directive 6).
+"""Roofline for the batched MHE window solve on the GPU.
 
 Measures the production-regime batched MHE path — B independent N-window
 estimation NLPs solved by the same stagewise IP engine as NMPC
 (fix_x0=False: the Riccati sweep picks the free arrival state) — cold and
-warm-started, with XLA cost analysis to name the binding resource, in the
-same methodology as tools/roofline.py (in-jit timing against the measured
-trip count; single-call timings below ~27 ms are dispatch floor on this
-environment).
+warm-started, with XLA cost analysis to name the binding resource.
 
 Usage: python tools/roofline_mhe.py [B] [--json out.json]
-Writes/updates the "mhe" section of ROOFLINE.json (or --json target).
+Writes/updates the "mhe" section of results/ROOFLINE.json (or --json).
 """
 import json
+import os
 import sys
 import time
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 def build_mhe(N=10, tol=1e-4, **extra):
     from hilo_mpc_tpu import MHE
     from hilo_mpc_tpu.library import cstr_schaffner_and_zeitz
 
-    # the production operating point measured in BENCH_SWEEP (covariance-
-    # derived weights, bench_secondary.py:109-131)
+    # the production operating point (covariance-derived weights,
+    # bench_secondary.py)
     mhe = MHE(cstr_schaffner_and_zeitz(), plot_backend=None)
     mhe.horizon = N
     mhe.Q = 1e-4
@@ -36,11 +37,10 @@ def build_mhe(N=10, tol=1e-4, **extra):
     return mhe
 
 
-# Since r5 the NMPC throughput playbook (single fraction-to-boundary Newton
-# step, fully-unrolled sweeps, fused Pallas Riccati, no per-stage eigh) IS
-# the default for auto-detected convex windows (affine measurement map —
-# estimation/mhe.py fast_path); "conservative" forces the pre-r5 guarded
-# configuration for the A/B
+# The NMPC throughput playbook (single fraction-to-boundary Newton step,
+# the platform's sweep, no per-stage eigh) IS the default for auto-detected
+# convex windows (affine measurement map — estimation/mhe.py fast_path);
+# "conservative" forces the guarded configuration for the A/B
 CONSERVATIVE = dict(fast_path=False)
 
 
@@ -78,13 +78,13 @@ def batch_windows(mhe, B, seed=0):
 
 
 def main():
+    from hilo_mpc_tpu.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/hilo_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    sys.path.insert(0, ".")
-    from tools.roofline import _peaks_for  # noqa: E402
+    from tools.roofline import _peaks_for
 
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 32768
     dev = jax.devices()[0]
@@ -115,10 +115,6 @@ def main():
             for _ in range(4):
                 t0 = time.perf_counter()
                 s = solve(mhe._bounds, *a)
-                # force full materialization: on the remote-dispatch backend
-                # block_until_ready alone can return before the data exists
-                # (dispatch-floor artifact) — pull a small slice to host
-                np.asarray(s.iterations[:16])
                 jax.block_until_ready(s.X)
                 ts.append(time.perf_counter() - t0)
             return min(ts), s
@@ -179,7 +175,7 @@ def main():
                     "ceiling for the measured time, i.e. the solve runs "
                     "within its estimate's bytes-limited floor)"
                     if bw >= 0.6 * peaks["hbm_Bps"]
-                    else "VPU issue rate / op serialization"),
+                    else "f32 issue rate / op serialization"),
             }
         return res, np.asarray(sol_w.X)[:, -1, :2]
 
@@ -199,12 +195,13 @@ def main():
               f"windows/s (cold {res['cold']['windows_per_s']:,.0f}), "
               f"conv {res['warm']['converged']:.3f}", file=sys.stderr)
 
-    target = "ROOFLINE.json"
+    target = os.path.join(ROOT, "results", "ROOFLINE.json")
     for i, a in enumerate(sys.argv):
         if a == "--json" and i + 1 < len(sys.argv):
             target = sys.argv[i + 1]
-    from roofline import merge_report
+    from tools.roofline import merge_report
 
+    os.makedirs(os.path.dirname(os.path.abspath(target)), exist_ok=True)
     merge_report({"mhe": out}, target)
     print(json.dumps({"mhe": out}))
 
